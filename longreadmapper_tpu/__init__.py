@@ -1,12 +1,12 @@
-"""longreadmapper_tpu — a TPU-native long-read DNA mapping framework.
+"""longreadmapper_tpu — a long-read DNA mapping framework in JAX.
 
-A from-scratch JAX/XLA/Pallas re-realization of the capabilities of
+A from-scratch JAX/XLA re-realization of the capabilities of
 lisanhu/LongReadMapper (AccSeqV9): reference preprocessing, suffix-array /
 FM-index / lchash seed-table construction, batched exact-match seeding via BWT
 backward search, histogram diagonal voting, banded (GACT-style) tiled
-alignment, and SAM emission — designed for TPU hardware (HBM-resident index,
-vectorized gathers, anti-diagonal wavefront kernels, shard_map data
-parallelism) rather than ported from the reference's CPU design.
+alignment, and SAM emission — designed for an accelerator (device-resident
+index, vectorized gathers, banded wavefront DP, shard_map data parallelism)
+rather than ported from the reference's CPU design.
 
 Reference behavior contracts are cited per-module as /root/reference/<file>:<line>.
 """
@@ -15,10 +15,8 @@ import os
 
 # The compute path is int32-clean by design: positions, votes, scores and DP
 # cells all fit 32 bits for texts < 2^31 bytes (every config short of the
-# whole human genome).  Global x64 is NOT enabled — it breaks Mosaic/Pallas
-# kernel lowering in current JAX — but the framework respects a user-set
-# JAX_ENABLE_X64 for the big-genome path (which then uses the XLA wavefront
-# instead of the Pallas kernel).
+# whole human genome).  Global x64 is NOT enabled; the >2^31-position
+# index path enables it at load (index/device._require_x64).
 
 __version__ = "0.1.0"
 

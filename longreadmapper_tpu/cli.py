@@ -21,8 +21,8 @@ from .utils.config import Params, read_params
 
 
 def main(argv=None) -> int:
-    from .utils.env import apply_platform_env
-    apply_platform_env()
+    from .utils.compile_cache import enable_compile_cache
+    enable_compile_cache()
     argv = list(sys.argv[1:] if argv is None else argv)
     ap = argparse.ArgumentParser(prog="longreadmapper_tpu")
     sub = ap.add_subparsers(dest="cmd", required=True)
@@ -63,14 +63,14 @@ def main(argv=None) -> int:
                     help="@RG timestamp id (default: current time, as the "
                          "reference; pass 0 for reproducible output)")
     ma.add_argument("--slim-index", action="store_true",
-                    help="reduced-HBM index layout (SA-only sa_ctx + "
+                    help="reduced-memory index layout (SA-only sa_ctx + "
                          "per-vote text-window recompute) for genomes "
-                         "near the chip's HBM ceiling")
+                         "near the device memory ceiling")
     ma.add_argument("--quiet", action="store_true")
 
     md = sub.add_parser("mapdist",
-                        help="multi-host mapping over a pod slice "
-                             "(one process per host; SAM stripes to "
+                        help="mapping over every device of one or more "
+                             "hosts (one process per host; SAM stripes to "
                              "--out-prefix.part<k>)")
     md.add_argument("fasta")
     md.add_argument("reads")
@@ -82,7 +82,7 @@ def main(argv=None) -> int:
                     help="row-shard the big index tables over a 'model' "
                          "mesh axis instead of replicating")
     md.add_argument("--slim-index", action="store_true",
-                    help="reduced-HBM index layout (SA-only sa_ctx + "
+                    help="reduced-memory index layout (SA-only sa_ctx + "
                          "text-pair verify windows); composes with "
                          "--shard-index for the biggest sharded genomes")
     md.add_argument("--model-shards", type=int, default=0,
@@ -93,8 +93,9 @@ def main(argv=None) -> int:
     wa = sub.add_parser("warmup",
                         help="precompile map steps for the given read-"
                              "length buckets into the persistent compile "
-                             "cache (cold-start mitigation; set "
-                             "JAX_COMPILATION_CACHE_DIR)")
+                             "cache (cold-start mitigation; the cache is "
+                             "JAX_COMPILATION_CACHE_DIR, else "
+                             "<checkout>/.jax_cache)")
     wa.add_argument("fasta")
     wa.add_argument("--lengths", default="256,1024",
                     help="comma-separated read lengths (default 256,1024)")

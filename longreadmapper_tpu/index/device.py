@@ -1,5 +1,5 @@
-"""HBM-resident device index: the TPU-native layout of the reference's
-in-RAM index set (fmi + lchash + SA + text; alnmain.c:179-256 `init`).
+"""Device-resident index: the device layout of the reference's in-RAM
+index set (fmi + lchash + SA + text; alnmain.c:179-256 `init`).
 
 Arrays (all jax, device-resident):
 
@@ -12,9 +12,8 @@ Arrays (all jax, device-resident):
   sa_hi     (n,) uint8             high byte of the 40-bit SA value — only
                                   for n >= 2^31 (None otherwise); gathered
                                   alongside sa_ctx so positions never need
-                                  int64 GATHERS (measured 3x slower per row
-                                  than int32 pairs on v5e — int64 is
-                                  emulated; scripts/bench_gather.py)
+                                  int64 gathers (int32 tables keep every
+                                  gather at 4-byte words)
   lch       (4^hlen, 2)           precomputed (k, l) SA intervals per k-mer
                                   (low 32 bits when lch_hi is present)
   lch_hi    (4^hlen, 2) uint8      high bytes of (k, l) for n >= 2^31
@@ -208,14 +207,22 @@ def _pad_rows4(a):
         [a, np.zeros((pad,) + a.shape[1:], a.dtype)], axis=0)
 
 
-def _upload(arrays: dict, meta: IndexMeta) -> DeviceIndex:
+def _upload(arrays: dict, meta: IndexMeta, mesh=None,
+            shard_tables: bool = False) -> DeviceIndex:
+    """Host arrays -> device: onto the default device, or with `mesh`
+    straight to their placement on it (parallel/dist.shard_index)."""
     if meta.pos_dtype == "int64":
         _require_x64()
-    return DeviceIndex(**{
-        k: (None if arrays[k] is None else jnp.asarray(
+    host = DeviceIndex(**{
+        k: (None if arrays[k] is None else
             _pad_rows4(arrays[k]) if k in ("sa_ctx", "sa_hi")
-            else arrays[k]))
+            else arrays[k])
         for k in _ARRAY_NAMES})
+    if mesh is not None:
+        from ..parallel.dist import shard_index
+        return shard_index(host, mesh, shard_tables=shard_tables)
+    return DeviceIndex(*(None if a is None else jnp.asarray(a)
+                         for a in host))
 
 
 def build_device_index(fmi: FMIndex, lch_kl: np.ndarray, hlen: int,
@@ -371,10 +378,13 @@ def _load_device_cache(genome_path: str, force_pos_dtype: str | None,
 
 def load_device_index(genome_path: str, force_pos_dtype: str | None = None,
                       cache: bool = True, slim: bool = False,
-                      verbose: bool = True,
+                      verbose: bool = True, mesh=None,
+                      shard_tables: bool = False,
                       ) -> tuple[DeviceIndex, IndexMeta, list[MtaEntry]]:
     """Load the persisted artifact set (.mta/.cat/.sa5/.mfi/.lch) to device —
-    the accaln `init` equivalent (alnmain.c:179-256).
+    the accaln `init` equivalent (alnmain.c:179-256).  With `mesh` the
+    tables are placed on it directly (replicated, or row-sharded over
+    'model' when `shard_tables`) instead of onto the default device.
 
     With `cache` (default), the derived device-layout arrays are read from
     `<genome>.cat.devidx/` when its fingerprint matches the artifacts, and
@@ -389,7 +399,7 @@ def load_device_index(genome_path: str, force_pos_dtype: str | None = None,
         if hit is not None:
             arrays, meta = hit
             log.vlog(f"device index cache hit: {_cache_dir(genome_path)}")
-            return _upload(arrays, meta), meta, mta
+            return _upload(arrays, meta, mesh, shard_tables), meta, mta
 
     from ..formats.lch import read_lch
 
@@ -408,4 +418,4 @@ def load_device_index(genome_path: str, force_pos_dtype: str | None = None,
             log.vlog(f"device index cache written: {_cache_dir(genome_path)}")
         except OSError as e:
             log.vlog(f"device index cache write failed (continuing): {e}")
-    return _upload(arrays, meta), meta, mta
+    return _upload(arrays, meta, mesh, shard_tables), meta, mta

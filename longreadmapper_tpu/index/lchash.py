@@ -2,7 +2,7 @@
 
 The reference builds this with 4^hlen *serial* backward searches
 (/root/reference/lchash/lchash.c:52-73 — 16.7M iterations at hlen=12, the
-index-build hot loop).  The TPU build runs the same recurrence as a batched
+index-build hot loop).  The device build runs the same recurrence as a batched
 `lax.scan` over hlen characters with all k-mers in vector lanes — an
 embarrassingly parallel gather workload.
 
@@ -96,7 +96,7 @@ def lc_build_from_sa(sa: np.ndarray, cat_codes: np.ndarray, hlen: int
 
 def lc_build_device(packed, occ_samp, c4, dollar_pos: int, n: int, hlen: int,
                     chunk: int = 1 << 20) -> np.ndarray:
-    """TPU lchash build: batched backward search over all 4^hlen k-mers.
+    """Device lchash build: batched backward search over all 4^hlen k-mers.
 
     Processes k-mer ids in chunks to bound working memory; each chunk is one
     jitted scan with every k-mer in its own vector lane.

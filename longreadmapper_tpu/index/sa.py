@@ -44,9 +44,9 @@ def sa_build_xla(codes: np.ndarray) -> np.ndarray:
     """Accelerator suffix-array construction: sort-based prefix doubling.
 
     The reference parallelizes SA construction with OpenMP threads inside
-    pSAscan (SURVEY.md P1); the TPU-native equivalent runs the whole build
+    pSAscan (SURVEY.md P1); the device equivalent runs the whole build
     as device sorts.  Per doubling round (all arrays in POSITION order —
-    no gathers or scatters, which cost ~25 ns/element on TPU):
+    no gathers or scatters):
 
         rank2 = rank shifted left by k            (dynamic slice, cheap)
         sort positions by (rank, rank2)           (device sort)

@@ -22,9 +22,9 @@ Replicates the per-read control flow of the reference's PART 1-3
       limit = (int)(ERROR_RATE * len * 2) (:428); distance > limit => -1
       (unmapped, flag 0x4)
 
-TPU-native seeding: EXPAND-AND-VERIFY, not LF-refinement.  The reference
+Device seeding: EXPAND-AND-VERIFY, not LF-refinement.  The reference
 narrows each seed's SA interval with seed_len-hlen sequential LF steps
-(lchash.c:103) — on TPU that is 2 serialized HBM gathers per step per seed.
+(lchash.c:103) — on a device that is 2 serialized gathers per step per seed.
 Instead, every candidate in the hlen-mer lchash interval is expanded
 directly and the remaining `left = seed_len - hlen` prefix characters are
 verified with ONE fused gather from the (SA value, packed 16-base left
@@ -113,12 +113,6 @@ class MapperConfig:
     # chunk through a scale-4 step instead of keeping corrupt CIGARs
     gact_runs_scale: int = 1
     ops_head_cols: int = 128     # eagerly-fetched CIGAR run bytes per read
-    # short-read band DP via the Pallas band-on-sublanes kernel
-    # (ops/band_pallas) instead of the XLA scan; bit-identical outputs
-    # (tests/test_band_pallas.py), TPU backend only.  Env default so the
-    # flag reaches the compiled step without new CLI surface:
-    # LRM_PALLAS_DIRS=1.
-    pallas_dirs: bool = False
     # column-consuming traceback (ops/traceback.device_traceback_c):
     # transpose vdirs to (B, band, G) and walk whole band columns per
     # gather — iterations = #indels + 2 instead of L/16 + 2*edits.  Emits
@@ -138,7 +132,7 @@ class MapperConfig:
         (asserted in ops/gact), so it stays at 2."""
         if self.use_gact:
             return 2 if self.tb_cols else 1
-        if not self.tb_cols or self.pallas_dirs:
+        if not self.tb_cols:
             return 1
         cmax = max(self.L, self.short_band - self.short_W)
         return 2 if cmax < 8192 else 4
@@ -244,9 +238,9 @@ class MapperConfig:
     # `slot_pack` ADJACENT sa_ctx rows.  A seed's votes are a CONTIGUOUS
     # SA interval [k, k+cnt), so assignment can run in pack-units of
     # ceil((k%pack + cnt)/pack) rows per seed — fewer, wider gather rows
-    # for the step's dominant gather.  Pays off iff the TPU gather cost
-    # is per-ROW rather than per-element (scripts/bench_gather.py row-
-    # width sweep); flat layout (pack=1) is the default.
+    # for the step's dominant gather.  Pays off iff the gather cost is
+    # per-ROW rather than per-element (scripts/bench_gather.py row-width
+    # sweep); flat layout (pack=1) is the default.
     slot_pack: int = 1
 
     @property
@@ -350,7 +344,6 @@ class MapperConfig:
             dollar_pos=meta.dollar_pos, accept_score=p.accept_score,
             error_rate=p.error_rate, vote_budget=p.vote_budget,
             pos64=meta.pos_dtype == "int64", slim=meta.slim,
-            pallas_dirs=os.environ.get("LRM_PALLAS_DIRS", "") == "1",
             tb_cols=os.environ.get("LRM_TB_COLWALK", "1") != "0",
             short_W_override=int(os.environ.get("LRM_SHORT_BAND", "0")),
             mid_dirs_budget=int(os.environ.get("LRM_MID_DIRS_BUDGET",
@@ -598,7 +591,7 @@ def _seed_vote(cfg: MapperConfig, idx: DeviceIndex, codes, lens):
 
     # lc_access (lchash.c:12-16): one row gather; (0,0) rows = absent k-mer.
     # pos64: (k, l) ride as int32 low words + uint8 high bytes (no int64
-    # gathers — measured 3x slower per row than int32 on v5e).
+    # gathers).
     safe_num = jnp.clip(num, 0, idx.lch.shape[0] - 1)
     kl = idx.lch[safe_num]
     if cfg.pos64:
@@ -677,16 +670,9 @@ def _seed_vote(cfg: MapperConfig, idx: DeviceIndex, codes, lens):
 
     # ONE fused gather per vote: (SA value, packed 16-base left context).
     # Narrowed wide seeds index the seed_len-mer interval directly: their
-    # SA value IS the seed start and needs no verification.  (A two-tier
-    # gather with the rarely-occupied slot tail under lax.cond was built
-    # and MEASURED SLOWER — 26.2 ms vs 18.2 ms at B=1024 — the cond's
-    # buffer handling costs more than the skipped rows save; see
-    # CLAUDE.md ledger.)  A hand-written Pallas replacement that reads
-    # only occupied slots is architecturally unavailable: Pallas TPU HBM
-    # access is block DMA only (no per-lane HBM gather on v5e), so the
-    # row reads would become millions of tiny DMAs, >=10x the XLA gather
-    # they replace.  XLA's gather op IS the hardware fast path here; the
-    # tunable lever is slot COUNT (vote_slots / LRM_VOTE_SIGMA).
+    # SA value IS the seed start and needs no verification.  The gather
+    # reads every slot, occupied or not; its cost scales with slot COUNT
+    # (vote_slots / LRM_VOTE_SIGMA).
     if pk == 1:
         p_safe = jnp.clip(p_rank, 0, cfg.n - 1)
         if cfg.slim:
@@ -766,8 +752,9 @@ def _seed_vote(cfg: MapperConfig, idx: DeviceIndex, codes, lens):
     v2 = v2.reshape(B, P)
 
     # per-phase accept: `(double)(v1+v2)/num_seeds > 0.6` (alnmain.c:375-378)
-    # as an exact rational compare (f64 is emulated on TPU; the gap between
-    # the double literal and the rational is ~2e-17, unreachable by v/num)
+    # as an exact rational compare (no float64 on the device path; the gap
+    # between the double literal and the rational is ~2e-17, unreachable
+    # by v/num)
     num_seeds = (lens.astype(jnp.int32) // cfg.step)[:, None]
     nacc, dacc = cfg.accept_frac
     accept = (num_seeds > 0) & ((v1 + v2) * dacc > nacc * num_seeds)
@@ -832,7 +819,7 @@ def make_map_step(cfg: MapperConfig):
 
     With cfg.raw_input the signature is step(idx, raw (B,L) uint8, lens,
     limits): ASCII decode (ACGT/acgt -> 0..3, else 4 incl. the zero pad)
-    and the reverse complement run on device — VPU compare-selects fused
+    and the reverse complement run on device — compare-selects fused
     into the step, valid for uniform-length chunks where the RC re-align
     is one roll (the wrapped pad 4s land exactly on the tail).
     """
@@ -855,9 +842,9 @@ def make_map_step(cfg: MapperConfig):
         w0 = (safe_loc >> 4).astype(jnp.int32)
         o = (safe_loc & 15).astype(jnp.int32)[:, None]
         # the window rows are CONTIGUOUS word slices, so fetch them as a
-        # slice-gather (slice_sizes=(nwords+1,)): one row per read at
-        # per-ROW gather pricing instead of B*(L/16+1) per-element cost
-        # (~25 ns/element, ~3 ms at B=2048).  text_packed is padded by a
+        # slice-gather (slice_sizes=(nwords+1,)): one row per read
+        # instead of B*(L/16+1) single-element gathers.  text_packed is
+        # padded by a
         # window so CLIP never shifts an in-range row; pad words are only
         # read at positions >= n, which the gpos mask sends to 5.
         tp_pad = jnp.concatenate(
@@ -938,23 +925,7 @@ def make_map_step(cfg: MapperConfig):
                                          device_traceback_v,
                                          traceback_c_iters,
                                          traceback_v_iters)
-            if cfg.pallas_dirs:
-                # band-on-sublanes Pallas kernel (ops/band_pallas):
-                # bit-identical words in band-major layout, the walk's
-                # gather cost is layout-independent
-                from ..ops.band_pallas import (HAVE_PALLAS,
-                                               banded_nw_dirs_vt)
-                if not HAVE_PALLAS:
-                    raise RuntimeError(
-                        "LRM_PALLAS_DIRS=1 but jax.experimental.pallas is "
-                        "unavailable in this jaxlib — unset the flag to "
-                        "use the XLA band scan")
-                vdirsT, wcol = banded_nw_dirs_vt(q, t, W, band)
-                run_bytes = device_traceback_v(vdirsT, lens, L, W,
-                                               band_major=True)
-                K = traceback_v_iters(L, W) + 4
-                band_short = jnp.zeros_like(found)
-            elif cfg.tb_cols:
+            if cfg.tb_cols:
                 # column-consuming walk: one gather per INDEL instead of
                 # per 16-row word.  Dead lanes (unmapped / over-limit, SAM
                 # CIGAR '*' either way) skip their walk entirely via the
@@ -993,11 +964,11 @@ def make_map_step(cfg: MapperConfig):
         # (the retry splice replaces the whole row with exact values)
         ed = jnp.where(band_short, -1, ed)
 
-        # Host-link layout: remote-attached TPUs pay per-array round trips
-        # and ~MB/s-scale D2H, so everything leaves the device as exactly
-        # two dense arrays — per-read scalars stacked into `meta` and the
-        # op string packed 2 bits/op (codes 0=M 1=I 2=D 3=pad).  pos64
-        # rows carry best/off as little-endian [lo, hi] int32 pairs.
+        # Host-link layout: every fetched array pays its own round trip,
+        # so everything leaves the device as exactly two dense arrays —
+        # per-read scalars stacked into `meta` and the op string packed
+        # 2 bits/op (codes 0=M 1=I 2=D 3=pad).  pos64 rows carry best/off
+        # as little-endian [lo, hi] int32 pairs.
         if cfg.pos64:
             b2 = lax.bitcast_convert_type(best, jnp.int32)
             o2 = lax.bitcast_convert_type(off.astype(jnp.int64), jnp.int32)
@@ -1013,10 +984,9 @@ def make_map_step(cfg: MapperConfig):
                               overflow.astype(jnp.int32)], axis=1)
         # compact the run bytes (stable sort by pad flag keeps path order):
         # at most head_cols entries are real for typical reads, so the D2H
-        # link (slow on remote-attached TPUs) ships meta + the head FUSED
-        # into one array (the link also pays a round trip PER ARRAY);
-        # `ops_tail` is fetched lazily only when some read overflows the
-        # head
+        # fetch ships meta + the head FUSED into one array (one round trip
+        # instead of two); `ops_tail` is fetched lazily only when some
+        # read overflows the head
         if cfg.tb_entry_bytes > 1:
             # pad-sort the 16/32-bit entries, then ship them bitcast to
             # little-endian byte groups (the host decode views them back
@@ -1038,10 +1008,8 @@ def make_map_step(cfg: MapperConfig):
             # entries are one per M-run/indel (not one per 16-row word):
             # a typical read needs 1-2, a 15-indel read 31 — so the eager
             # head can be 4x smaller than the byte format's, cutting the
-            # pass's dominant D2H blob ~2x (the link runs ~15 MB/s);
-            # rare indel-heavy chunks pay one lazy tail fetch instead.
-            # Default 16 B (8 entries): measured 32.4k vs 31.3k reads/s
-            # at 64 B on the 4 Mb bench (r5 bench_head16, healthy link)
+            # pass's D2H blob ~2x; rare indel-heavy chunks pay one lazy
+            # tail fetch instead.  Default 16 B (8 entries).
             head = min(head, int(os.environ.get("LRM_OPS_HEAD", "16")))
             head -= head % cfg.tb_entry_bytes     # whole entries only
         meta_bytes = lax.bitcast_convert_type(meta, jnp.int8).reshape(

@@ -1,5 +1,5 @@
 // Affine-gap banded Smith-Waterman with traceback — the host-side
-// counterpart of the TPU scorer (longreadmapper_tpu/ops/affine.py) and the
+// counterpart of the device scorer (longreadmapper_tpu/ops/affine.py) and the
 // framework's equivalent of the reference's SSW wrapper `compute_cigar`
 // (/root/reference/ssw/ssw_use.c:27-54: match=2, mismatch=-2, gap open 3,
 // gap extend 1, N scores 0 against everything).

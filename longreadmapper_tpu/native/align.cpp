@@ -7,8 +7,8 @@
 // score; a score above the limit (= 2*ERROR_RATE*len) means "unmapped" and is
 // reported as -1 by the caller.
 //
-// Division of labor on TPU: the Pallas wavefront kernel computes the banded
-// DP score matrix H for a whole batch of reads on-device
+// Division of labor: the device wavefront DP computes the banded
+// DP score matrix H for a whole batch of reads
 // (longreadmapper_tpu/ops/wavefront.py); this file walks H back on the host
 // to recover the CIGAR (a sequential, data-dependent ~n-step pointer chase —
 // the one part of GACT that does not vectorize).  `lrm_banded_align` is the

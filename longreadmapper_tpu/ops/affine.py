@@ -1,4 +1,4 @@
-"""Batched affine-gap Smith-Waterman on TPU — the SSW-equivalent scorer.
+"""Batched affine-gap Smith-Waterman on the device — the SSW-equivalent scorer.
 
 The reference vendors Mengyao Zhao's striped Smith-Waterman (SSE2
 intrinsics) as a standalone library + test target, not linked into accaln
@@ -7,8 +7,8 @@ intrinsics) as a standalone library + test target, not linked into accaln
 gap open 3, gap extend 1, and N scoring 0 against everything
 (/root/reference/ssw/ssw_use.c:27-54).
 
-TPU design: same banded anti-diagonal layout as ops/wavefront.py (band
-coordinate d = j - i + W), vectorized over the read batch on the VPU.
+Design: same banded anti-diagonal layout as ops/wavefront.py (band
+coordinate d = j - i + W), vectorized over the read batch.
 Affine recurrences per row i (oe = open + ext, the cost of a gap's first
 base in ssw's convention):
 
@@ -19,9 +19,8 @@ base in ssw's convention):
 
 The E unrolling is exact because E never profitably re-enters through a
 previous E (oe >= ext); it is computed with one max-plus prefix scan over
-the band (log2(band) shifted maxima), like the min-plus scan of the edit
-kernel.  Returns the best local score and its end position — the primary
-`ssw_align` contract (score1/ref_end1/read_end1, ssw.h:118).  CIGAR for a
+the band, the negated min-plus scan of the edit kernel.  Returns the best
+local score and its end position — the primary `ssw_align` contract (score1/ref_end1/read_end1, ssw.h:118).  CIGAR for a
 chosen pair comes from the host-side native affine traceback
 (longreadmapper_tpu/native/affine.cpp) — the `compute_cigar` equivalent.
 """
@@ -34,28 +33,17 @@ import jax
 import jax.numpy as jnp
 from jax import lax
 
+from .wavefront import _minplus_scan
+
 NEG = -(1 << 20)
 
 
 def _maxplus_scan(x, band: int, ext: int):
     """Inclusive max-plus scan: out[d] = max_{e<=d} x[e] - ext*(d-e).
 
-    Slope transform + fused cummax at short bands; doubling scan at wide
-    bands on TPU, where XLA's cumulative lowering collapses (~20x — see
-    wavefront._minplus_scan; the CPU backend prefers cummax at every
-    width)."""
-    import jax
-    if band <= 512 or jax.default_backend() == "cpu":
-        d_idx = ext * jnp.arange(band, dtype=x.dtype)
-        return lax.cummax(x + d_idx, axis=x.ndim - 1) - d_idx
-    s = 1
-    while s < band:
-        shifted = jnp.concatenate(
-            [jnp.full(x.shape[:-1] + (s,), NEG, x.dtype), x[..., :-s]],
-            axis=-1)
-        x = jnp.maximum(x, shifted - ext * s)
-        s *= 2
-    return x
+    The negated min-plus scan of ops/wavefront, so both DPs share one
+    lowering rule.  Requires x >= -INF (here x >= 0)."""
+    return -_minplus_scan(-x, band, slope=ext)
 
 
 @partial(jax.jit, static_argnames=("W", "band", "match", "mismatch",

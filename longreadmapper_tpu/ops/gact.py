@@ -4,7 +4,7 @@ direction matrix in HBM.
 
 The reference's GACT (absent submodule; Darwin ASPLOS'18 algorithm per
 SURVEY.md §2) bounds memory by aligning fixed T x T tiles greedily and
-stitching.  The TPU-native equivalent keeps the alignment EXACT instead:
+stitching.  This design keeps the alignment EXACT instead:
 
   forward pass   — the banded DP runs tile-by-tile over query rows
                    (lax.scan of K tiles, T rows each), storing only each
@@ -105,9 +105,9 @@ def gact_forward(q, t, T: int, W: int, band: int):
     int16) — ckpt[k] is H row k*T; wcol[i] = H[i, W] (ed of read b is
     wcol[lens_b, b]).
 
-    Rows advance 16 per scan iteration: the TPU loop-iteration floor is
-    ~6.5 us regardless of the work inside, so one-row-per-iteration DP
-    was iteration-bound (measured 140 us/row at 10 kb), not VPU-bound."""
+    Rows advance 16 per scan iteration: every loop iteration pays a
+    fixed cost regardless of the work inside, so a one-row-per-iteration
+    DP is bound by iteration count rather than arithmetic."""
     B, L = q.shape
     assert L % T == 0 and T % 16 == 0
     K = L // T
@@ -288,7 +288,7 @@ def gact_traceback_c(q, t, ckpt, lens, T: int, W: int, band: int,
     the next indel *row* directly.  A substitutions-only lane crosses a
     whole tile in ONE iteration instead of T/16 word-fragments — at
     10 kb / T=512 that is 20 iterations per read instead of 640+, and
-    sequential iterations cost ~6.5 us each on TPU regardless of body.
+    each sequential iteration pays a fixed cost regardless of body.
 
     Returns (runs, saturated): runs (B, gact_runs_cols_c(L, T, W)) int16
     entries (count << 2 | op) in reverse path order with pad gaps

@@ -1,8 +1,8 @@
-"""TPU-native FM-index rank (Occ) and backward-search primitives.
+"""Device FM-index rank (Occ) and backward-search primitives.
 
 The reference's hot loop `_occ_access` (/root/reference/fmidx/fmidx.c:277-293)
-rescans up to o_ratio BWT *bytes* per backward-search step.  The TPU design
-stores the BWT 2-bit packed, 16 bases per int32 word, with per-word sampled
+rescans up to o_ratio BWT *bytes* per backward-search step.  The device
+design stores the BWT 2-bit packed, 16 bases per int32 word, with per-word sampled
 counts — one rank query is then exactly two HBM gathers (sample row + packed
 word) plus a popcount, fully vectorized over thousands of query lanes:
 

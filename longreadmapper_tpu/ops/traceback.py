@@ -82,9 +82,8 @@ def device_traceback_c(vdirs, lens, L: int, W: int, nm=None,
     that cell is exactly the next indel on the path.
 
     Finding that indel without touching all G words per lane (a (B, G)
-    wide gather measured per-ELEMENT on v5e — 131k elements ~ 3.3 ms per
-    iteration — and the (B, band, G) transpose it needed cost 9.5 ms):
-    a per-(b, d) GROUP BITMAP, built once before the loop with one
+    wide gather per iteration, or a (B, band, G) transpose of the whole
+    volume): a per-(b, d) GROUP BITMAP, built once before the loop with one
     vectorized pass over vdirs (bit g set iff group g's word has any
     non-M pair), tells which group holds the next indel; the loop then
     needs only three 1-element-per-lane gathers — the current group's
@@ -206,13 +205,9 @@ def device_traceback_c(vdirs, lens, L: int, W: int, nm=None,
     return jnp.transpose(runs, (1, 0, 2)).reshape(B, -1)
 
 
-def device_traceback_v(vdirs, lens, L: int, W: int,
-                       band_major: bool = False):
+def device_traceback_v(vdirs, lens, L: int, W: int):
     """Run-consuming CIGAR walk over VERTICALLY packed direction words
-    (ops/wavefront.banded_nw_dirs_v, or with band_major=True the Pallas
-    kernel's transposed emission ops/band_pallas.banded_nw_dirs_vt —
-    vdirs (G, band, B) instead of (G, B, band); the gather cost is
-    identical either way, ~25 ns/element independent of shape).
+    (ops/wavefront.banded_nw_dirs_v, vdirs (G, B, band)).
 
     One gather fetches the 16-row word at the walk's current (row-group,
     band column); a whole M-run inside it collapses to one emitted
@@ -223,18 +218,13 @@ def device_traceback_v(vdirs, lens, L: int, W: int,
 
         n_iter = L/16 + 2W + 4
 
-    — ~8x fewer HBM gathers than the per-cell walk (XLA TPU gathers cost
-    ~25 ns per ELEMENT regardless of shape, so fewer-and-equal-size beats
-    wider).
+    — ~8x fewer gathers than the per-cell walk.
 
     Returns runs (B, 2*n_iter) int8 in reverse path order, each byte
     (count << 2) | op with op codes 0=M 1=I 2=D; bytes with op 3 or
     count 0 are padding.
     """
-    if band_major:
-        G, band, B = vdirs.shape
-    else:
-        G, B, band = vdirs.shape
+    G, B, band = vdirs.shape
     Vf = vdirs.reshape(-1)
     bidx = jnp.arange(B, dtype=jnp.int32)
     n_iter = traceback_v_iters(L, W)
@@ -245,8 +235,7 @@ def device_traceback_v(vdirs, lens, L: int, W: int,
         d = jnp.clip(j - i + W, 0, band - 1)
         g = jnp.maximum(i - 1, 0) >> 4
         r = jnp.maximum(i - 1, 0) & 15
-        flat = ((g * band + d) * B + bidx if band_major
-                else (g * B + bidx) * band + d)
+        flat = (g * B + bidx) * band + d
         word = jnp.take(Vf, jnp.clip(flat, 0, G * B * band - 1))
         # M-run length at bit-pair r going down: shift cell r to the top,
         # count leading zero pairs (M == 0b00)

@@ -1,28 +1,26 @@
-"""Banded global-alignment DP on TPU (the GACT compute core).
+"""Banded global-alignment DP (the GACT compute core).
 
 Observable contract of the reference's GACT aligner (absent submodule; API at
 /root/reference/mutils.c:94-105): unit-cost global alignment of a read
 against a same-length reference window; score = edit distance; fails (-1)
 when the distance exceeds the limit 2*ERROR_RATE*len (alnmain.c:428).
 
-TPU design (SURVEY.md §7.7): a banded Needleman-Wunsch over rows, the whole
+Design (SURVEY.md §7.7): a banded Needleman-Wunsch over rows, the whole
 read batch vectorized.  Band coordinate d = j - i + W (W = static half-width,
 chosen >= every read's limit so in-limit alignments are exact).  The in-row
-insertion dependency H(i,j-1)+1 is resolved with a min-plus prefix scan
-(log2(band) shift steps), so each row is O(log band) vector ops — no scalar
-loops, everything on the VPU.
+insertion dependency H(i,j-1)+1 is resolved with a min-plus prefix scan, so
+each row is a handful of whole-row vector ops — no scalar loops.
 
 The full banded score matrix H is emitted ((B, L+1, band) int16) for host
 traceback (longreadmapper_tpu/native/align.cpp) — the CIGAR walk is the one
 sequential part of GACT.  Padding conventions: query padding code 4 never
 matches target padding code 5; '$'/out-of-range target positions also map to
 5; cells outside the band or the DP domain hold INF (0x3FFF).
-
-This file is the reference jnp implementation; ops/wavefront_pallas.py holds
-the fused Pallas kernel (same contract, checked against this in tests).
 """
 
 from __future__ import annotations
+
+from functools import partial
 
 import jax
 import jax.numpy as jnp
@@ -30,33 +28,33 @@ from jax import lax
 
 INF = 0x3FFF
 
+SCAN_LOWERINGS = ("cummin", "doubling")
+# The one lowering rule of the band DPs' scans: cummin on every backend.
+# On the CPU it is one fused pass against log2(band) full-row passes; on
+# an H100 80GB HBM3 (700 W) banded_nw_dirs_v took 10.33 vs 12.86 ms at
+# (B 2048, L 1024, band 256) and 99.62 vs 119.60 ms at (B 200, L 10240,
+# band 1152) with cummin vs doubling (chip_smoke.py phase 7, PERF.md).
+SCAN_LOWERING = "cummin"
 
-def _minplus_scan(x, band: int):
-    """Inclusive min-plus scan: out[d] = min_{e<=d} x[e] + (d - e).
 
-    Two lowerings, measured on v5e (scripts/bench_minplus.py + rowprof):
-    the slope transform out = d + cummin(x - d) wins ~15% at short bands
-    (7.1 vs 8.8 us/row at (1024, 256)), but XLA's TPU cummin lowering
-    COLLAPSES at long rows (142 vs 7.5 us/row at (48, 2176) — the 10 kb
-    long-read band), so wide bands use the hand-rolled doubling scan.
-    On the CPU backend it's the mirror image (cummin is one fused pass,
-    doubling is log2(band) full-array passes — ~10x), so the switch is
-    backend-aware."""
-    import jax
-    if band <= 512 or jax.default_backend() == "cpu":
-        d_idx = jnp.arange(band, dtype=x.dtype)
+def _minplus_scan(x, band: int, slope: int = 1, lowering: str | None = None):
+    """Inclusive min-plus scan: out[d] = min_{e<=d} x[e] + slope*(d - e).
+
+    Two lowerings with equal outputs: the slope transform
+    out = slope*d + cummin(x - slope*d), and a doubling scan of log2(band)
+    shifted minima.  `lowering` None takes SCAN_LOWERING.  Entries of x
+    must not exceed INF (the doubling scan's fill value)."""
+    if (lowering or SCAN_LOWERING) == "cummin":
+        d_idx = slope * jnp.arange(band, dtype=x.dtype)
         return d_idx + lax.cummin(x - d_idx, axis=x.ndim - 1)
     s = 1
     while s < band:
         shifted = jnp.concatenate(
             [jnp.full(x.shape[:-1] + (s,), INF, x.dtype), x[..., :-s]],
             axis=-1)
-        x = jnp.minimum(x, shifted + s)
+        x = jnp.minimum(x, shifted + slope * s)
         s *= 2
     return x
-
-
-from functools import partial
 
 
 @partial(jax.jit, static_argnames=("W", "band"))
@@ -68,8 +66,7 @@ def banded_nw_scores(q, t, W: int, band: int):
     W: static half band width; band: static total width (>= 2W+1, typically
        padded to a lane multiple).
     Returns H: (L+1, B, band) int16 — row-major layout, rows leading (the
-    natural scan-stacking order; also what the Pallas kernel emits, since
-    dynamic VMEM writes need the row index on the leading dim).
+    natural scan-stacking order).
     """
     B, L = q.shape
     dt = jnp.int32

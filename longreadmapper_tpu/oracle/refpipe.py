@@ -1,6 +1,6 @@
 """Pure-Python/numpy oracle: a literal transcription of the reference's
 mapping control flow (/root/reference/alnmain.c:330-527), used as the golden
-reference the TPU pipeline must match record-for-record (SURVEY.md §4
+reference the device pipeline must match record-for-record (SURVEY.md §4
 "golden-SAM comparison harness").
 
 Slow by design (per-read loops, dict histograms) — completely independent

@@ -1,7 +1,7 @@
 """Distributed mapping: data-parallel reads over a device mesh.
 
 Design (BASELINE.json north star): reads stream data-parallel across chips
-(the TPU-native form of the reference's chunked batch loop, alnmain.c:330);
+(the device form of the reference's chunked batch loop, alnmain.c:330);
 the index is replicated per chip (configs 1-2, 4) or sharded over the
 'model' axis (configs 3, 5 — large genomes).  Per-shard results carry a
 psum'd valid-read counter so the sensitivity metric (alnmain.c:541) is a
@@ -15,6 +15,7 @@ from dataclasses import replace
 
 import jax
 import jax.numpy as jnp
+import numpy as np
 from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
 
 from ..index.device import DeviceIndex
@@ -23,18 +24,32 @@ from ..mapping.pipeline import MapperConfig, make_map_step
 
 def _pad0(a, m: int):
     """Pad dim 0 to a multiple of m (pad rows are never gathered — all
-    pipeline gathers clip to the true n-1)."""
+    pipeline gathers clip to the true n-1).  Host arrays pad on the host."""
     r = (-a.shape[0]) % m
     if r:
-        pad = jnp.zeros((r,) + a.shape[1:], a.dtype)
-        a = jnp.concatenate([a, pad], axis=0)
+        xp = np if isinstance(a, np.ndarray) else jnp
+        a = xp.concatenate([a, xp.zeros((r,) + a.shape[1:], a.dtype)],
+                           axis=0)
     return a
+
+
+def _place(a, sharding):
+    """Put one table on the mesh.  Host arrays go straight to the devices
+    that hold their slices (no staging copy, and valid in multi-process
+    meshes, where a process addresses only its own devices)."""
+    if a is None:
+        return None
+    if isinstance(a, np.ndarray):
+        return jax.make_array_from_callback(a.shape, sharding,
+                                            lambda i: a[i])
+    return jax.device_put(a, sharding)
 
 
 def shard_index(idx: DeviceIndex, mesh: Mesh, shard_tables: bool = False
                 ) -> DeviceIndex:
     """Place the index on the mesh: replicated, or with the big gather
-    tables (SA, lchash, text) sharded row-wise over the 'model' axis."""
+    tables (SA, lchash, text) sharded row-wise over the 'model' axis.
+    Takes host (numpy) or device arrays; already-placed arrays stay put."""
     rep = NamedSharding(mesh, P())
     if not shard_tables:
         shard = rep
@@ -42,22 +57,11 @@ def shard_index(idx: DeviceIndex, mesh: Mesh, shard_tables: bool = False
     else:
         shard = NamedSharding(mesh, P("model"))
         nm = mesh.shape["model"]
-    return DeviceIndex(
-        packed=jax.device_put(idx.packed, rep),
-        occ_samp=jax.device_put(idx.occ_samp, rep),
-        c4=jax.device_put(idx.c4, rep),
-        sa_ctx=jax.device_put(_pad0(idx.sa_ctx, nm), shard),
-        sa_hi=None if idx.sa_hi is None
-        else jax.device_put(_pad0(idx.sa_hi, nm), shard),
-        lch=jax.device_put(_pad0(idx.lch, nm), shard),
-        lch_hi=None if idx.lch_hi is None
-        else jax.device_put(_pad0(idx.lch_hi, nm), shard),
-        text_packed=jax.device_put(_pad0(idx.text_packed, nm), shard),
-        text_pair=None if idx.text_pair is None
-        else jax.device_put(_pad0(idx.text_pair, nm), shard),
-        mta_start=jax.device_put(idx.mta_start, rep),
-        mta_len=jax.device_put(idx.mta_len, rep),
-    )
+    big = ("sa_ctx", "sa_hi", "lch", "lch_hi", "text_packed", "text_pair")
+    return DeviceIndex(**{
+        k: (_place(_pad0(a, nm), shard) if k in big and a is not None
+            else _place(a, rep))
+        for k, a in idx._asdict().items()})
 
 
 def _valid_count(cfg: MapperConfig, out, lens):

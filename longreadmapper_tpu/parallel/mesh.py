@@ -2,12 +2,12 @@
 
 The reference has no distributed runtime at all (SURVEY.md §2: files+stdout
 are the only IPC; OpenMP threads and SLURM job arrays are its parallelism).
-The TPU-native equivalents:
+The device-mesh equivalents:
 
   P3 (chunked batch loop)       -> 'data' mesh axis: reads sharded per chip
   index replication vs sharding -> 'model' mesh axis: SA/lchash tables can be
                                    sharded over chips (BASELINE configs 3-5)
-  P5 (SLURM sweeps)             -> multi-host pod slices via
+  P5 (SLURM sweeps)             -> multi-host meshes via
                                    jax.distributed.initialize + the same mesh
 """
 

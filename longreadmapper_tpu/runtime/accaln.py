@@ -25,9 +25,9 @@ def run_mapping(genome_path: str, reads_path: str,
                 slim: bool = False) -> tuple[int, int]:
     """Map `reads_path` against the index of `genome_path`; SAM to `out`.
 
-    `slim` selects the reduced-HBM index layout (IndexMeta.slim: SA-only
-    sa_ctx + per-vote text window recompute) for genomes near the chip's
-    HBM ceiling.  Returns (valid, total).
+    `slim` selects the reduced-memory index layout (IndexMeta.slim: SA-only
+    sa_ctx + per-vote text window recompute) for genomes near the
+    device memory ceiling.  Returns (valid, total).
     """
     p = params or read_params()
     out = out or sys.stdout
@@ -59,4 +59,9 @@ def run_mapping(genome_path: str, reads_path: str,
     log.vlog("Done aligning")
     if total:
         log.vlog("Sensitivity: %d/%d=%f", valid, total, valid / total)
+    log.vlog("host phases: %s", " ".join(
+        f"{k}={v:.3f}s" for k, v in mapper.phase_s.items()))
+    log.vlog("retry tiers: %d reads re-mapped exactly, %d chunks re-walked, "
+             "%d reads flagged", mapper.retried_reads,
+             mapper.retried_sat_chunks, mapper.overflow_reads)
     return valid, total

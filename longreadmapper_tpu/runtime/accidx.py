@@ -3,12 +3,15 @@
 Pipeline: FASTA -> .mta/.cat (N-replacement, uppercase, fwd+revcomp concat)
 -> suffix array (.sa5, native SA-IS) -> FM-index (.mfi) -> lchash (.lch).
 
-The lchash build runs on the accelerator when one is available (batched
-backward search over all 4^hlen k-mers) and falls back to vectorized numpy.
+The lchash build runs on the accelerator when JAX has one (batched
+backward search over all 4^hlen k-mers); on the CPU backend, or with
+`use_device=False`, it runs on the host from the suffix array.  A failure
+of the device build fails the index build.
 """
 
 from __future__ import annotations
 
+import jax
 import numpy as np
 
 from ..formats.catmeta import create_meta, load_cat
@@ -19,14 +22,6 @@ from ..index.lchash import lc_build_device, lc_build_from_sa
 from ..index.sa import sa_build
 from ..utils.config import Params
 from ..utils.log import new_logger
-
-
-def _accelerator_present() -> bool:
-    try:
-        import jax
-        return jax.default_backend() not in ("cpu",)
-    except Exception:
-        return False
 
 
 def build_index(fasta_path: str, params: Params | None = None,
@@ -55,18 +50,17 @@ def build_index(fasta_path: str, params: Params | None = None,
     t0 = log.vlog("lc_build: %d k-mers (hlen=%d)", 1 << (2 * p.hlen), p.hlen)
     # The SA-derived host build is O(n*hlen) with no FM searches and no
     # compiles — byte-identical to the reference's 4^hlen serial backward
-    # searches (tests/test_index.py) and the right default everywhere.  The
-    # batched device scan only pays off on a real accelerator.
+    # searches (tests/test_index.py).  The batched device scan runs only
+    # where JAX has an accelerator.
     cat = load_cat(prefix)  # one pass; re-reading is ~45 s/scan at hg19 scale
-    if use_device and _accelerator_present():
-        try:
-            idx, meta = build_device_index(
-                fmi, np.zeros((1 << (2 * p.hlen), 2), np.uint64), p.hlen, cat, mta)
-            kl = lc_build_device(idx.packed, idx.occ_samp, idx.c4,
-                                 meta.dollar_pos, meta.n, p.hlen)
-        except Exception as e:  # no accelerator / OOM -> host build
-            log.elog("device lc_build failed (%s); falling back to host", e)
-            kl = lc_build_from_sa(fmi.sa, encode_bytes(cat), p.hlen)
+    if use_device and jax.default_backend() != "cpu":
+        # the device scan reads only the BWT rank tables: a one-row
+        # placeholder stands in for the lchash table being built
+        idx, meta = build_device_index(
+            fmi, np.zeros((1, 2), np.uint64), p.hlen, cat, mta)
+        kl = lc_build_device(idx.packed, idx.occ_samp, idx.c4,
+                             meta.dollar_pos, meta.n, p.hlen)
+        del idx
     else:
         kl = lc_build_from_sa(fmi.sa, encode_bytes(cat), p.hlen)
     write_lch(prefix + ".lch", p.hlen, kl)
@@ -77,7 +71,7 @@ def build_index(fasta_path: str, params: Params | None = None,
         # first `map` is an I/O-bound fread like the reference's accaln
         # init (alnmain.c:192-252) — at genome scale the assembly is tens
         # of minutes and belongs in the (already long) index build, not in
-        # the first mapping run (VERDICT r2 missing #4)
+        # the first mapping run
         from ..index.device import _assemble_host_arrays, save_device_cache
 
         t0 = log.vlog("devidx: assembling the device-layout cache")

@@ -1,21 +1,21 @@
 """Multi-host distributed mapping launcher.
 
 The reference scales across machines only by SLURM job arrays — one
-independent process per parameter point (SURVEY.md P5).  The TPU-native
-framework instead runs ONE logical mapper over a pod slice
-(BASELINE.json configs: 1 chip -> 1 host -> N hosts at >= 90 % scaling):
+independent process per parameter point (SURVEY.md P5).  This framework
+instead runs ONE logical mapper over every device of one or more hosts:
 
-  - `jax.distributed.initialize()` wires the hosts (honors the standard
-    coordinator env vars / TPU metadata; no-ops for a single process);
-  - a global ('data', 'model') mesh spans every chip of the slice; each
-    chunk is a GLOBAL batch sharded over 'data' (every process parses the
-    shared FASTQ and packs only its own contiguous row slice — host-local
-    I/O, no central dispatcher);
-  - the HBM-resident index is built once per host and replicated per
-    chip, or — `shard_index_tables` — row-sharded over the 'model' axis
-    for genomes that exceed one chip's HBM (parallel/dist.shard_index;
-    XLA partitions the seeding gathers into per-shard lookups +
-    collectives);
+  - `jax.distributed.initialize()` wires the hosts (from the
+    JAX_COORDINATOR_ADDRESS / JAX_NUM_PROCESSES / JAX_PROCESS_ID env
+    vars; a single process skips it);
+  - a global ('data', 'model') mesh spans every device; each chunk is a
+    GLOBAL batch sharded over 'data' (every process parses the shared
+    FASTQ and packs only its own contiguous row slice — host-local I/O,
+    no central dispatcher);
+  - the device index is loaded once per host straight onto the mesh:
+    replicated per device, or — `shard_index_tables` — row-sharded over
+    the 'model' axis for genomes that exceed one device's memory
+    (parallel/dist.shard_index; XLA partitions the seeding gathers into
+    per-shard lookups + collectives);
   - the sensitivity counter (alnmain.c:541) is a real cross-device
     collective (psum over 'data', or a GSPMD global sum when the index is
     sharded), so every process logs the same GLOBAL valid count;
@@ -44,9 +44,9 @@ from .reads import chunks, load_read_batches
 def init_distributed() -> tuple[int, int]:
     """Initialize jax.distributed when a coordinator is configured.
 
-    Returns (process_index, process_count).  Controlled by the standard
-    env vars (JAX_COORDINATOR_ADDRESS / JAX_NUM_PROCESSES / JAX_PROCESS_ID
-    or the TPU pod metadata); a lone process skips initialization."""
+    Returns (process_index, process_count).  Controlled by the env vars
+    JAX_COORDINATOR_ADDRESS / JAX_NUM_PROCESSES / JAX_PROCESS_ID; a lone
+    process skips initialization."""
     import jax
 
     coord = os.environ.get("JAX_COORDINATOR_ADDRESS")
@@ -70,14 +70,13 @@ def run_distributed(genome_path: str, reads_path: str,
                     chunk_b: int = 0, shard_index_tables: bool = False,
                     model_shards: int = 0, slim: bool = False,
                     verbose: bool = True) -> tuple[int, int]:
-    """Map `reads_path` with one logical mapper over every chip of the
-    slice.  Returns the GLOBAL (valid, total) — identical on every
+    """Map `reads_path` with one logical mapper over every device.  Returns the GLOBAL (valid, total) — identical on every
     process, via the collective sensitivity counter.
 
     SAM goes to `<out_prefix>.part<process_index>` (stdout when
     out_prefix is None and the slice is a single process).
     `model_shards` sets the 'model' mesh-axis size when
-    `shard_index_tables` (default: all devices, i.e. maximal HBM relief;
+    `shard_index_tables` (default: all devices, i.e. maximal memory relief;
     the 'data' axis gets the rest)."""
     import jax
 
@@ -96,10 +95,14 @@ def run_distributed(genome_path: str, reads_path: str,
                   pid, nproc, ndev, ndev // n_model, n_model,
                   " (index tables sharded)" if shard_index_tables else "")
     # slim composes with table sharding: SA-only sa_ctx + text_pair verify
-    # windows shrink each model shard's HBM slice further (the reference's
-    # sampled-CSA trade, fmidx.c:153-163, expressed as a layout option)
+    # windows shrink each model shard's slice further (the reference's
+    # sampled-CSA trade, fmidx.c:153-163, expressed as a layout option).
+    # The tables go from host memory straight to their mesh placement, so
+    # a sharded index never has to fit on one device.
     idx, meta, mta = load_device_index(genome_path, slim=slim,
-                                       verbose=verbose and pid == 0)
+                                       verbose=verbose and pid == 0,
+                                       mesh=mesh,
+                                       shard_tables=shard_index_tables)
     log.vlog("index loaded in %.2fs (n=%d)", log.elapse(t0), meta.n)
 
     if out_prefix is None and nproc == 1:
@@ -114,6 +117,7 @@ def run_distributed(genome_path: str, reads_path: str,
 
     mapper = TPUMapper(idx, meta, mta, p, chunk_b=chunk_b, mesh=mesh,
                        shard_tables=shard_index_tables)
+    del idx
     total = local_total = 0
     for batch in load_read_batches(reads_path, p.batch_size):
         # every process walks every GLOBAL chunk (SPMD); the mapper packs

@@ -44,15 +44,16 @@ def auto_hlen(n_cat: int) -> int:
 
     Deeper lchash tables cut the seed-expansion gather — the map step's
     dominant cost — because the per-seed background hit rate is
-    lam = n/4^hlen.  Measured (BASELINE.md rounds 3-4): hlen 14 beats 12
-    by ~11% e2e even on a 4 Mb genome (vote budget 112 -> 80 slots), and
-    at genome scale 12 is unusable (n = 1e9: lam = 60 -> ~3000-slot
-    budgets).  The device table costs 8 B x 4^hlen HBM (2.1 GB at 14),
-    flat in n, so 14 is the production default at every real genome
-    size on a 16 GB chip; 15 (8.6 GB) only makes sense sharded over a
-    mesh.  The reference hard-codes 12 (asindex.c:142) — only sub-Mb
-    toy fixtures keep that floor, where a 4-minute 4^14-row table build
-    against a sub-second index is absurd.
+    lam = n/4^hlen: at hlen 14 a 4 Mb genome's vote budget drops from 112
+    to 80 slots, and at genome scale 12 is unusable (n = 1e9: lam = 60 ->
+    ~3000-slot budgets).  The table is 16 B x 4^hlen as built and
+    stored (uint64 (k, l) pairs: 4.3 GB at 14, the .lch file likewise)
+    and 8 B x 4^hlen on the device (int32 pairs: 2.1 GB at 14), flat in
+    n, so 14 is a small share of one device at every real genome size;
+    15 quadruples it.  The
+    reference hard-codes 12 (asindex.c:142) — only sub-Mb toy fixtures
+    keep that floor, where a 4^14-row table build against a sub-second
+    index is absurd.
 
     `n_cat` is the .cat length (2*genome + 1); returns 12 or 14."""
     return 14 if n_cat >= 2_000_000 else 12

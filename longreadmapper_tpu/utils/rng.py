@@ -5,7 +5,7 @@ The reference replaces N bases in the genome with random ACGT drawn from
 with `srand48(time(NULL))` (asindex.c:125) — i.e. NOT reproducible across
 runs.  Our build makes the seed an explicit flag (default 0) and documents
 this as an intentional divergence: given the same seed, our `.cat` files are
-bit-identical across runs and across the numpy oracle / TPU pipelines.
+bit-identical across runs and across the numpy oracle / device pipelines.
 
 `_dna_rand_ch` consumption pattern replicated exactly (asindex.c:37-50):
 one 31-bit lrand48 value serves 17 2-bit samples at shift positions

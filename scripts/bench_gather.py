@@ -1,16 +1,15 @@
 """Microbench: sa_ctx gather layouts on the real chip (dev tool).
 
 Question 1: does gathering (R,) int64 rows cost half of (R, 2) int32 rows?
-(TPU gathers cost ~25 ns per ELEMENT — CLAUDE.md measured fact — so fusing
-the (sa, ctx) pair into one int64 element should halve the seeding
-pipeline's dominant gather.)
+(If gathers cost per ELEMENT, fusing the (sa, ctx) pair into one int64
+element halves the seeding pipeline's dominant gather.)
 
 Question 2 (row-width sweep): is the cost per ROW or per ELEMENT?  The
 seeding slots of one (read, phase) are CONTIGUOUS sa_ctx rows (an SA
 interval), so if (R, 4) int32 rows cost ~the same per row as (R, 2), the
 pipeline can fetch TWO adjacent slots per gather row and halve the row
-count of its dominant ~5.5M-row gather (VERDICT r2 #2's last untried
-avenue).  Measured per-width at the bench row counts.
+count of its dominant ~5.5M-row gather.  Measured per-width at the bench
+row counts.
 """
 import os
 import sys
@@ -18,8 +17,9 @@ import time
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 os.environ.setdefault("JAX_ENABLE_X64", "1")   # int64 table variant
-os.environ.setdefault("JAX_COMPILATION_CACHE_DIR",
-                      os.path.expanduser("~/.cache/jax_cc"))
+from longreadmapper_tpu.utils.compile_cache import enable_compile_cache  # noqa: E402
+
+enable_compile_cache()
 
 import jax
 import jax.numpy as jnp

@@ -1,10 +1,10 @@
 #!/usr/bin/env python
-"""Parameter-sweep job generator — the TPU-native counterpart of the
+"""Parameter-sweep job generator — the device counterpart of the
 reference's SLURM sweep (/root/reference/scripts/gen-sbatch-scripts.py:74-111,
 which emits 210 jobs over seed_len x thres against hg19).
 
 Generates one launch script per (seed_len, thres) parameter point running
-`python -m longreadmapper_tpu.cli map` on a TPU host, plus a submit-all
+`python -m longreadmapper_tpu.cli map` on a GPU host, plus a submit-all
 script.  Default grid matches the reference sweep: seed_len in [12, 33),
 thres in {100, 200, ..., 1000}.  --slurm emits sbatch headers instead of
 plain shell scripts.

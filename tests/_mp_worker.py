@@ -6,7 +6,7 @@ Usage: python _mp_worker.py <pid> <nproc> <port> <ndev_per_proc> <fa> <fq>
 
 Each process forms its own 4-device virtual CPU node; the two nodes wire
 up via jax.distributed (Gloo CPU collectives) into one 8-device mesh —
-the smallest faithful model of a multi-host pod slice.
+the smallest faithful model of a multi-host mesh.
 """
 
 import os
@@ -22,9 +22,6 @@ os.environ["JAX_PLATFORMS"] = "cpu"
 os.environ["XLA_FLAGS"] = (os.environ.get("XLA_FLAGS", "")
                            + f" --xla_force_host_platform_device_count={ndev}"
                            + " --xla_cpu_collective_timeout_seconds=600")
-os.environ.setdefault("JAX_COMPILATION_CACHE_DIR",
-                      os.path.expanduser("~/.cache/jax_cc"))
-os.environ.setdefault("JAX_PERSISTENT_CACHE_MIN_COMPILE_TIME_SECS", "1")
 os.environ["JAX_COORDINATOR_ADDRESS"] = f"localhost:{port}"
 os.environ["JAX_NUM_PROCESSES"] = str(nproc)
 os.environ["JAX_PROCESS_ID"] = str(pid)
@@ -33,7 +30,9 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 import jax
 
-jax.config.update("jax_platforms", "cpu")
+from longreadmapper_tpu.utils.compile_cache import enable_compile_cache
+
+enable_compile_cache()
 jax.config.update("jax_cpu_collectives_implementation", "gloo")
 # must run before ANY backend use (library imports build jnp constants)
 jax.distributed.initialize(coordinator_address=f"localhost:{port}",

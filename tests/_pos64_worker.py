@@ -12,15 +12,14 @@ import os
 import sys
 
 os.environ["JAX_PLATFORMS"] = "cpu"
-os.environ.setdefault("JAX_COMPILATION_CACHE_DIR",
-                      os.path.expanduser("~/.cache/jax_cc"))
-os.environ.setdefault("JAX_PERSISTENT_CACHE_MIN_COMPILE_TIME_SECS", "1")
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 import jax
 
-jax.config.update("jax_platforms", "cpu")
+from longreadmapper_tpu.utils.compile_cache import enable_compile_cache
+
+enable_compile_cache()
 
 fa, fq = sys.argv[1], sys.argv[2]
 batch, seed_len, thres = (int(a) for a in sys.argv[3:6])

@@ -1,5 +1,5 @@
 """Aligner-family tests: the SSW-equivalent affine-gap scorer and the
-edlib-equivalent Myers distance, cross-checked three ways (TPU op == native
+edlib-equivalent Myers distance, cross-checked three ways (device op == native
 C++ == brute-force numpy) — re-creating the reference's per-library test
 drivers (ssw/ssw_test.c, edlib/ed_test.c) as property tests."""
 

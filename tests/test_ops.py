@@ -1,6 +1,5 @@
 """Property tests for the core device ops against pure-Python references."""
 
-import os
 import numpy as np
 import jax.numpy as jnp
 import pytest
@@ -184,21 +183,28 @@ def test_vertical_dirs_and_run_walk_match_reference_walk():
         np.testing.assert_array_equal(expanded, ref_ops, err_msg=f"read {b}")
 
 
-@pytest.mark.skipif(os.environ.get("LRM_TPU_TESTS", "") != "1",
-                    reason="set LRM_TPU_TESTS=1 on real TPU hardware")
-def test_pallas_scores_matches_jnp_tpu():
-    """TPU-only: the hand-written Pallas kernel must agree with the XLA
-    implementation cell-for-cell."""
-    import jax.numpy as jnp
-    from longreadmapper_tpu.ops.wavefront import banded_nw_scores
-    from longreadmapper_tpu.ops.wavefront_pallas import banded_nw_scores_pallas
-    rng = np.random.default_rng(4)
-    B, L, W, band = 16, 256, 32, 128
-    q = jnp.asarray(rng.integers(0, 4, (B, L)), dtype=jnp.int8)
-    t = jnp.asarray(rng.integers(0, 4, (B, L)), dtype=jnp.int8)
-    np.testing.assert_array_equal(
-        np.asarray(banded_nw_scores(q, t, W, band)),
-        np.asarray(banded_nw_scores_pallas(q, t, W, band)))
+@pytest.mark.parametrize("band", [128, 256, 1152, 2176])
+def test_minplus_scan_lowerings_agree(band):
+    """Both lowerings of the band DP's min-plus scan (cummin slope
+    transform, doubling scan) equal the definition
+    out[d] = min_{e<=d} x[e] + slope*(d - e) at the map step's band
+    widths: 1 kb short band 256, 10 kb half/full bands 1152/2176."""
+    from longreadmapper_tpu.ops.wavefront import (SCAN_LOWERINGS,
+                                                  _minplus_scan)
+    rng = np.random.default_rng(band)
+    x = rng.integers(0, INF + 1, (3, band)).astype(np.int32)
+    x[:, ::7] = INF                  # masked cells, as outside the domain
+    d = np.arange(band)
+    for slope in (1, 2):
+        want = np.empty_like(x)
+        for j in range(band):
+            want[:, j] = np.min(x[:, :j + 1] + slope * (j - d[:j + 1]),
+                                axis=1)
+        for lowering in SCAN_LOWERINGS:
+            got = np.asarray(_minplus_scan(jnp.asarray(x), band,
+                                           slope=slope, lowering=lowering))
+            np.testing.assert_array_equal(got, want,
+                                          err_msg=f"{lowering} {slope}")
 
 
 def test_slots_by_sort_matches_owns():

@@ -1,7 +1,7 @@
 """Genome-scale position-layout tests.
 
 The >2^31 .cat path stores positions split-hi (int32 low words + uint8 high
-bytes — no int64 gathers, which measure 3x slower per row on TPU) and runs
+bytes — no int64 gathers, so every gather stays on 4-byte words) and runs
 the vote/locate arithmetic in int64.  These tests prove the int64 machinery
 bit-exact against the int32 path on the same small index; the actual >2^31
 end-to-end build+map is the opt-in big fixture in test_genome_scale.py.

@@ -1,12 +1,12 @@
-"""Slim HBM index layout (VERDICT r2 missing #5): sa_ctx carries SA only
+"""Slim index layout: sa_ctx carries SA only
 (4 B/pos instead of 8) and the 16-base verify window is recomputed per vote
 from a text_pair gather — must be record-identical to the full layout on
 the same genome/reads, in both position widths.
 
 The reference's sampled CSA (fmidx.c:153-163,315-331) exists for the same
-memory trade; the slim layout is the TPU-native point on that curve (one
-extra int32-pair gather per vote instead of LF-walks, which cost ~25 ns
-per gathered element on TPU and would multiply the seeding stage)."""
+memory trade; the slim layout is the device point on that curve (one
+extra int32-pair gather per vote instead of LF-walks, which would
+multiply the seeding stage's gathers)."""
 
 import numpy as np
 import pytest
